@@ -36,8 +36,7 @@ class ProblemConfig:
     # (vmapped) substructured solve
     n_sources: int = 8
     # DDH subdomain side length in DOFs (the reference hard-codes 16,
-    # DDH.cpp:5; 32 cuts high-frequency iteration counts ~3.5x at nx=512,
-    # docs/PERF.md)
+    # DDH.cpp:5; 32 cuts high-frequency iteration counts ~3.5x at nx=512)
     block_size: int = 16
     # two-level coarse correction: None | "additive" | "multiplicative"
     # (solvers/coarse.py; requires transfer=True)
@@ -120,8 +119,7 @@ BASELINE_CONFIGS = (
         n_sources=8,
         # m=40 for the BLOCK multi-source solver: the shared m*K space cuts
         # restarts 17 -> 7 at K=8 and the longer cycle amortises the
-        # per-restart true-residual matvec + small-op overhead (measured
-        # 0.29 -> 0.21 s warm vs m=20; per-source trajectories unchanged)
+        # per-restart true-residual matvec + small-op overhead
         gmres=GmresConfig(m=40, maxit=100, tol=1e-4),
     ),
 )

@@ -14,7 +14,7 @@ iteration counts, and solve time for
     scored by crossing-edge count -- cut edges ARE the lambda unknowns).
 
 Run: ``python -m cuddhelmholtz_tpu.examples.partition_study [--nx 32]``.
-Emits one JSON line per case; the summary table lives in docs/PERF.md.
+Emits one JSON line per case.
 """
 
 from __future__ import annotations

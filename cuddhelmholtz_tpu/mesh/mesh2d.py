@@ -7,7 +7,7 @@ Capability parity with the reference's geometry layer
 flat NumPy arrays (element->vertex table, edge tables, orientation signs) and
 all metric evaluation (Jacobians, measures, normals, physical coordinates) is
 vectorised over elements x quadrature points.  These static arrays are what
-the jitted TPU operators close over.
+the jitted device operators close over.
 
 Conventions (identical to the reference so index maps are interchangeable):
   * elements are bilinear quads with counter-clockwise vertices 0..3;

@@ -82,7 +82,7 @@ def make_helmholtz_op(
         km = make_kron_mass_op(space, coeff=a2_nodal, dtype=dtype)
         # the kron path supersedes the generic element-batched operators;
         # skip collocating/uploading their (nel, nq, nq) arrays (tens of MB
-        # of dead HBM at large grids).  Element-sharded execution
+        # of dead device memory at large grids).  Element-sharded execution
         # (parallel.sharded_helmholtz_matvec) needs them: build with
         # kron=False there.
         stiffness = mass = None
@@ -105,34 +105,20 @@ def apply_helmholtz(
     op: HelmholtzOp,
     U: jax.Array,
     grid: tuple | None = None,
-    kron_precision=None,
 ) -> jax.Array:
     """Y = A U for U = [u; v] of length 2*ndof.
 
     Pass ``grid=(nx, ny)`` when the space is a GridH1Space to use the
-    strided-slice structured assembly (no arbitrary gathers on TPU).
-
-    ``kron_precision`` overrides the kron fast path's matmul precision
-    (default HIGH).  Measured on TPU v5e at nx=128: HIGH leaves a 2.6e-5
-    relative operator error on the kron stiffness (XLA's 3-pass scheme
-    does not reach fp32 grade at these small-matrix batched shapes) which
-    stalls fp32 Krylov solves near 1e-3; "highest" restores 8e-8 at ~2x
-    the (tiny) matmul cost -- required when the operator feeds a solver
-    targeting tolerances below ~1e-3.
+    strided-slice structured assembly (no arbitrary gathers).  The kron
+    fast path runs at true fp32 (``ops/kron.py``).
     """
     n = op.ndof
     u, v = U[:n], U[n:]
     w2 = op.omega * op.omega
 
     if op.kron_stiffness is not None:
-        if kron_precision is None:
-            S = lambda w: apply_stiffness_kron(op.kron_stiffness, w)
-            M = lambda w: apply_mass_kron(op.kron_mass, w)
-        else:
-            S = lambda w: apply_stiffness_kron(
-                op.kron_stiffness, w, precision=kron_precision
-            )
-            M = lambda w: apply_mass_kron(op.kron_mass, w, precision=kron_precision)
+        S = lambda w: apply_stiffness_kron(op.kron_stiffness, w)
+        M = lambda w: apply_mass_kron(op.kron_mass, w)
     elif grid is not None:
         from ..ops.structured import apply_mass_structured, apply_stiffness_structured
 

@@ -5,7 +5,7 @@ forward solver only.  Here the whole pipeline — nodal wave speed ``a`` →
 coefficient collocation → coupled operator → GMRES solve → observation
 misfit — is one pure JAX function, so ``jax.grad`` delivers the exact
 discrete adjoint gradient with one extra linear solve
-(``solvers/implicit.py``), ready for gradient-based inversion on TPU.
+(``solvers/implicit.py``), ready for gradient-based inversion.
 
 The physical parametrisation follows the reference's convention
 (``examples/Helmholtz.cpp:190-218``): the volume term uses ``a^2`` at the

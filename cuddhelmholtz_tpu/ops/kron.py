@@ -9,9 +9,13 @@ and the weighted mass is ``E^T diag(Wq) E`` with per-direction block-banded
 quadrature-evaluation matrices.  Stored dense, the whole operator apply
 becomes a handful of N x N matmuls (N = nx*(nb-1)+1, e.g. 385 for the
 reference Helmholtz config ``/root/reference/examples/Helmholtz.cpp:101-103``)
-— pure MXU work with zero gathers, replacing the per-element einsum +
+— dense matmul work with zero gathers, replacing the per-element einsum +
 segment_sum path (``ops/stiffness.py``, ``ops/mass.py``) whose tiny trailing
-dims (nb=4) waste the 128-lane axis.
+dims (nb=4) make poorly shaped kernels.
+
+The matmuls run at true fp32 ("highest") by default: a lower word may use
+TF32 tensor cores on the GPU, which leaves an operator error that stalls
+fp32 Krylov solves (docs/DTYPES.md).
 
 Numerically identical to the generic path (same quadrature, same collocated
 data); equality is checked in ``tests/test_kron.py``.  Only valid on a
@@ -94,7 +98,7 @@ def make_kron_stiffness_op(
 
 
 def apply_stiffness_kron(
-    op: KronStiffnessOp, x: jax.Array, precision=jax.lax.Precision.HIGH
+    op: KronStiffnessOp, x: jax.Array, precision="highest"
 ) -> jax.Array:
     """y = S x as four dense matmuls (K, M symmetric so no transposes)."""
     Ny, Nx = op.Ky.shape[0], op.Kx.shape[0]
@@ -146,7 +150,7 @@ def make_kron_mass_op(
 
 
 def apply_mass_kron(
-    op: KronMassOp, x: jax.Array, precision=jax.lax.Precision.HIGH
+    op: KronMassOp, x: jax.Array, precision="highest"
 ) -> jax.Array:
     """y = M x: evaluate on the quadrature grid, scale, integrate back."""
     Ny, Nx = op.Ey.shape[1], op.Ex.shape[1]

@@ -6,8 +6,8 @@ Parity with the reference ``MassMatrix`` / ``DiagInvMassMatrix``
 gather -> 1D interpolation (sum factorisation) -> pointwise scale ->
 transpose-interpolation -> scatter-add.
 
-TPU design: the per-element kernels become batched einsums (MXU matmuls over
-the element batch dimension) and the atomicAdd assembly becomes a
+Design: the per-element kernels become batched einsums (matmuls over the
+element batch dimension) and the atomicAdd assembly becomes a
 deterministic ``segment_sum``.  All index maps are static arrays baked at
 setup.
 """

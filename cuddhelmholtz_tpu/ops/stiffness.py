@@ -5,7 +5,7 @@ Parity with the reference ``StiffnessMatrix``
 symmetric contravariant metric ``G = w J^{-T} J^{-1} det J`` (entries A, B, C)
 on a Gauss-Legendre grid; the action is gather -> 1D interpolate+differentiate
 -> contravariant flux -> transpose-integrate -> scatter-add, all as batched
-einsums + segment_sum on TPU.
+einsums + segment_sum.
 """
 
 from __future__ import annotations

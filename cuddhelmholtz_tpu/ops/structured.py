@@ -1,8 +1,7 @@
 """Structured-grid fast path: CG assembly with zero arbitrary gathers.
 
-On TPU, arbitrary gathers/scatters are the bottleneck of matrix-free CG
-operators (measured ~2.6 ms gather + 2.8 ms scatter vs 0.76 ms of einsum for
-the 128x128 deg-3 stiffness apply).  For ``uniform_rect`` meshes we instead
+Arbitrary gathers/scatters move several times the bytes of the einsums in a
+matrix-free CG operator apply.  For ``uniform_rect`` meshes we instead
 number DOFs in row-major grid order (``GridH1Space``); the element
 gather/scatter then become nb*nb strided slices / strided adds, which XLA
 vectorises fully.

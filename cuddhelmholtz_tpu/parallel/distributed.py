@@ -1,19 +1,19 @@
 """Multi-host execution entry: ``jax.distributed`` wiring + hybrid meshes.
 
 The reference is strictly single-GPU; its multi-node story is an aspirational
-comment (``/root/reference/include/Mesh2D.hpp:108-109,237-239``).  The
-TPU-native framework runs multi-host the standard JAX way:
+comment (``/root/reference/include/Mesh2D.hpp:108-109,237-239``).  This
+framework runs multi-process the standard JAX way:
 
-  * every process calls :func:`initialize_from_env` once at startup (driven
-    by env vars or explicit args — on Cloud TPU pods the arguments
-    auto-detect and may be omitted entirely);
+  * every process calls :func:`initialize_from_env` once at startup with
+    the coordinator address, process count and process id (explicit
+    arguments or ``CUDDH_*`` environment variables);
   * :func:`hybrid_device_mesh` builds a 2-axis ``(dcn, ici)`` mesh: the
-    outer axis crosses hosts over DCN, the inner axis stays within a host's
-    ICI domain.  Shardings that place neighbouring subdomains on the same
-    ``ici`` block keep the DDH trace exchange on ICI; only the ``psum``
-    tree's top level rides DCN.
+    outer axis runs across processes, the inner axis over the devices of
+    one process.  Shardings that place neighbouring subdomains on the same
+    inner block keep the DDH trace exchange within a process; only the
+    ``psum`` tree's top level crosses processes.
 
-Multi-process execution is validated without a pod by spawning local CPU
+Multi-process execution is validated on one machine by spawning local CPU
 processes (Gloo collectives), see ``spawn_cpu_processes`` and
 ``tests/test_multiprocess.py`` / ``__graft_entry__.dryrun_multiprocess``.
 """
@@ -33,9 +33,9 @@ def initialize_from_env(
     """Initialize ``jax.distributed`` for multi-host runs.
 
     Arguments default to the ``CUDDH_COORDINATOR`` / ``CUDDH_NUM_PROCESSES``
-    / ``CUDDH_PROCESS_ID`` environment variables; when none are present and
-    the platform cannot auto-detect (single-host dev boxes), this is a no-op
-    returning False.  Safe to call twice (second call is ignored).
+    / ``CUDDH_PROCESS_ID`` environment variables; when none are given this
+    is a single-process run and a no-op returning False (unless another
+    initializer already ran).  Safe to call twice (second call is ignored).
     """
     import jax
 
@@ -65,13 +65,7 @@ def initialize_from_env(
         return True
 
     if coordinator_address is None and num_processes is None:
-        # Cloud TPU pods auto-detect through the metadata server; calling
-        # initialize() bare is correct there but raises on plain hosts.
-        try:
-            jax.distributed.initialize()
-            return True
-        except Exception:
-            return _already_initialized()
+        return False
 
     try:
         jax.distributed.initialize(
@@ -104,11 +98,10 @@ def hybrid_device_mesh(
 ):
     """A 2-axis ``(dcn, ici)`` mesh over all global devices.
 
-    Multi-process: one DCN group per process (each process's local devices
-    share ICI), via ``mesh_utils.create_hybrid_device_mesh``.  Single
-    process: the device list is reshaped to ``(n // ici_per_group,
-    ici_per_group)`` so the same program shape can be exercised on a
-    simulated CPU mesh.
+    Multi-process: one outer group per process, holding that process's local
+    devices.  Single process: the device list is reshaped to
+    ``(n // ici_per_group, ici_per_group)`` so the same program shape can
+    be exercised on a simulated CPU mesh.
     """
     import jax
     from jax.sharding import Mesh
@@ -117,20 +110,9 @@ def hybrid_device_mesh(
     n_proc = jax.process_count()
     if n_proc > 1:
         per_host = len(devs) // n_proc
-        try:
-            # TPU pods: group by slice so ici really is the ICI domain
-            from jax.experimental import mesh_utils
-
-            arr = mesh_utils.create_hybrid_device_mesh(
-                mesh_shape=(1, per_host),
-                dcn_mesh_shape=(n_proc, 1),
-                devices=devs,
-            )
-        except ValueError:
-            # CPU multi-process (no slice metadata): one dcn group per process
-            arr = np.array(
-                sorted(devs, key=lambda d: (d.process_index, d.id))
-            ).reshape(n_proc, per_host)
+        arr = np.array(
+            sorted(devs, key=lambda d: (d.process_index, d.id))
+        ).reshape(n_proc, per_host)
         return Mesh(arr, (dcn_axis, ici_axis))
     if ici_per_group is None:
         ici_per_group = len(devs)

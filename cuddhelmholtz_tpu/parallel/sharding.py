@@ -1,26 +1,27 @@
-"""Multi-chip execution: shard elements and subdomains over a device mesh.
+"""Multi-device execution: shard elements and subdomains over a device mesh.
 
-The reference is strictly single-GPU (SURVEY.md section 2: no MPI/NCCL).  The
-TPU-native scaling story implemented here:
+The reference is strictly single-GPU (SURVEY.md section 2: no MPI/NCCL).
+Here, over a 1-D mesh of the cards of one host (joined all to all, so the
+mesh follows the algorithm alone):
 
   * **Operators (element parallel)**: elements are row-sharded over the mesh
-    axis; each chip gathers from a replicated global vector, applies its
-    element batch (MXU einsums), scatter-adds into a full-length local
-    accumulator, and a ``psum`` over ICI completes the CG assembly.  For the
-    problem sizes this framework targets (<= a few M DOF), the replicated
-    vector + psum-assembly layout is bandwidth-optimal on ICI and avoids halo
-    bookkeeping entirely.
+    axis; each device gathers from a replicated global vector, applies its
+    element batch, scatter-adds into a full-length local accumulator, and a
+    ``psum`` completes the CG assembly.  For the problem sizes this
+    framework targets (<= a few M DOF), the replicated vector +
+    psum-assembly layout avoids halo bookkeeping entirely.
   * **DDH (subdomain parallel)**: subdomains are row-sharded; the lambda
-    (interface trace) vector is small (O(n_shared)) and kept replicated; each
-    chip runs the VMEM-resident wave cycle for its subdomain block and the
-    transmission updates are combined with a single small ``psum`` -- the
-    TPU analog of the reference's single-kernel-exit lambda exchange.
+    (interface trace) vector is small (O(n_shared)) and kept replicated;
+    each device applies the transfer matrices (or runs the wave cycle) for
+    its subdomain block and the transmission updates are combined with a
+    single small ``psum`` -- the analog of the reference's
+    single-kernel-exit lambda exchange.
   * GMRES dot products reduce with ``psum`` automatically because the Krylov
     vectors here stay replicated (lambda system) while the expensive matvec
     is subdomain-sharded.
 
 Everything is built on ``shard_map`` over an explicit ``jax.sharding.Mesh``;
-no code change is needed between 1 chip, 1 host, and multi-host meshes.
+XLA lowers the collectives to NCCL on GPUs.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from ..solvers.ddh import (
     _scatter_solution,
     _scatter_updates,
     _transfer_update,
-    _wave_cycle,
+    _wave_cycle_xla,
 )
 
 
@@ -117,8 +118,8 @@ def shard_stiffness_op(op: StiffnessOp, mesh: Mesh, axis: str = "shard") -> Stif
 def sharded_stiffness_apply(op: StiffnessOp, mesh: Mesh, axis: str = "shard"):
     """Build a jittable y = S x with elements sharded over ``mesh``.
 
-    x and y are replicated; the per-chip partial assembly is combined with one
-    psum over ICI.
+    x and y are replicated; the per-device partial assembly is combined with
+    one psum.
     """
 
     ndof = op.ndof
@@ -204,7 +205,7 @@ def sharded_helmholtz_matvec(
 
     The stiffness and weighted-mass element batches are row-sharded; one
     ``shard_map`` computes both volume partials for the stacked (u, v) pair
-    and combines them with a single ``psum`` of a (2, ndof) stack over ICI.
+    and combines them with a single ``psum`` of a (2, ndof) stack.
     The face-mass boundary terms act on O(sqrt(ndof)) DOFs and stay
     replicated.  Returns a jittable ``U -> A U`` closure over the sharded
     operator data; U is replicated (the GMRES basis layout).
@@ -283,17 +284,12 @@ class ShardedDDH:
         ddh: DDH,
         mesh: Mesh,
         axis: str | tuple = "shard",
-        use_pallas: bool | None = None,
     ):
         self.mesh = mesh
         self.axis = axis
         axes = _axes_tuple(axis)
         self.axes = axes
         self.inner = ddh
-        if use_pallas is None:
-            # per-shard Pallas wave cycle on TPU meshes; XLA scan elsewhere
-            use_pallas = all(d.platform == "tpu" for d in mesh.devices.flat)
-        self.use_pallas = use_pallas
         n = _mesh_axis_size(mesh, axes)
         p = ddh.params
         ndom = p.gI.shape[0]
@@ -356,7 +352,6 @@ class ShardedDDH:
         wh = ddh.wh_maxit
         g_ndof = ddh.g_ndof
         n_lambda = ddh.n_lambda
-        use_pallas_ = use_pallas
         precision = ddh.precision
         n_own = ddh.n_own
         pf = ddh.params.Hf.shape[1]
@@ -364,21 +359,21 @@ class ShardedDDH:
         n_own_pad = ndom_pad * pf
 
         def _offset():
-            # this chip's first subdomain row (own-slot lambda ids are
+            # this device's first subdomain row (own-slot lambda ids are
             # contiguous per row, so the trace read is one dynamic slice)
             return _flat_axis_index(mesh, axes_) * ndom_local
 
         # row-shard the precomputed trace-transfer (scattering) matrices when
         # the inner DDH has them: the lambda matvec is then one small batched
-        # matmul per chip + one psum, instead of a full wave cycle
+        # matmul per device + one psum, instead of a full wave cycle
         self.T = place_rows(ddh.T) if ddh.use_transfer else None
         self.use_transfer = self.T is not None
 
         # halo-exchange (ppermute) variant of the rolled trace exchange: the
         # uniform sender routes become local rolls whose boundary rows ride
-        # ICI to the neighbouring chip, instead of replicating the full
+        # to the neighbouring device, instead of replicating the full
         # lambda update with a big psum.  Requires every route offset to fit
-        # within one chip's subdomain block.
+        # within one device's subdomain block.
         self.route_offs = ()
         self.route_perms = ()
         self._roll_data = None
@@ -431,13 +426,12 @@ class ShardedDDH:
             mesh=mesh,
             in_specs=(self._param_spec, P()),
             out_specs=P(),
-            check_vma=False,  # pallas_call outputs carry no vma annotations
         )
         def _action(params, lam):
             F, G, lam0, mu0 = _forcing(
                 params, None, lam, 0, n_own, n_own_pad, _offset()
             )
-            u, v = _wave_cycle(params, F, G, wh, use_pallas_, precision)
+            u, v = _wave_cycle_xla(params, F, G, wh, precision)
             v = v / params.omega
             upd = _scatter_updates(params, lam0, mu0, u, v, n_lambda)
             return lam - jax.lax.psum(upd, axes_)
@@ -459,11 +453,10 @@ class ShardedDDH:
             mesh=mesh,
             in_specs=(self._param_spec, P()),
             out_specs=P(),
-            check_vma=False,  # pallas_call outputs carry no vma annotations
         )
         def _rhs(params, f):
             F, G, lam0, mu0 = _forcing(params, f, None, g_ndof)
-            u, v = _wave_cycle(params, F, G, wh, use_pallas_, precision)
+            u, v = _wave_cycle_xla(params, F, G, wh, precision)
             v = v / params.omega
             upd = _scatter_updates(params, lam0, mu0, u, v, n_lambda)
             return jax.lax.psum(upd, axes_)
@@ -473,11 +466,10 @@ class ShardedDDH:
             mesh=mesh,
             in_specs=(self._param_spec, P(), P()),
             out_specs=P(),
-            check_vma=False,  # pallas_call outputs carry no vma annotations
         )
         def _post(params, lam, f):
             F, G, _, _ = _forcing(params, f, lam, g_ndof, n_own, n_own_pad, _offset())
-            u, v = _wave_cycle(params, F, G, wh, use_pallas_, precision)
+            u, v = _wave_cycle_xla(params, F, G, wh, precision)
             v = v / params.omega
             y = _scatter_solution(params, u, v, g_ndof)
             return jax.lax.psum(y, axes_)
@@ -510,12 +502,12 @@ class ShardedDDH:
                 """Rolled trace exchange with ppermute halo transfers,
                 overlapped with the interior transfer matmul.
 
-                Uniform sender routes shift this chip's subdomain block
-                locally; only the |off| boundary rows ride ICI to the
-                neighbouring chip.  The boundary rows' (|off|, 2pf) @
+                Uniform sender routes shift this device's subdomain block
+                locally; only the |off| boundary rows go to the
+                neighbouring device.  The boundary rows' (|off|, 2pf) @
                 (2pf, 2pf) products are computed FIRST and their ppermutes
                 issued before the bulk interior matmul, so XLA's
-                latency-hiding scheduler runs the ICI transfer concurrently
+                latency-hiding scheduler runs the transfer concurrently
                 with the interior compute (the reference's design point:
                 lambda exchange only at kernel entry/exit,
                 DDH.cpp:222-231,310-319).  The small irregular remainder
@@ -577,7 +569,7 @@ class ShardedDDH:
                 ls, tg = irr_ls[0], irr_t[0]
                 vals_l = u2[:, :pf_].reshape(-1)[ls].astype(lam.dtype)
                 vals_m = u2[:, pf_:].reshape(-1)[ls].astype(lam.dtype)
-                # one concatenated collective for both halves: half the ICI
+                # one concatenated collective for both halves: half the
                 # all-reduce latency of separate addl/addm psums
                 add2 = (
                     jnp.zeros((2, n_lambda + 1), lam.dtype)

@@ -1,13 +1,13 @@
 """Two-level DDH: a plane-wave coarse space on the interface (lambda) system.
 
 One-level substructuring shows the classical frequency wall: restarts grow
-18 -> 19 -> 88 over nx=128/256/512 at 16-DOF blocks (docs/PERF.md).  The
+18 -> 19 -> 88 over nx=128/256/512 at 16-DOF blocks.  The
 standard cure is a coarse space: project the residual onto a small set of
 slowly-resolved interface modes, solve that coarse problem directly, and
 correct.  This goes beyond the reference outright -- its DDH is strictly
 one-level (``/root/reference/source/DDH.cpp:111-321``).
 
-Design (TPU-first):
+Design:
 
 * Coarse columns are **plane waves localised to superdomains**: for each
   superdomain ``s`` (a cluster of subdomains from median bisection of their
@@ -25,7 +25,7 @@ Design (TPU-first):
   scatter-add over (superdomain, mode) pairs -- no probe solves.
 * ``E`` is symmetrically diagonal-normalised, ridge-regularised, and
   inverted once; the device keeps ``Einv`` so each application is two
-  small einsums + one (nc, nc) matmul (MXU) + two segment reductions.
+  small einsums + one (nc, nc) matmul + two segment reductions.
 
 The correction is used as a right preconditioner in FGMRES on the lambda
 system (``DDH.solver(coarse=...)``): additive ``v + Z E^{-1} Z^T v`` (one
@@ -35,10 +35,9 @@ action per iteration) or multiplicative ``q + (v - A q)`` with
 Two coarse-solve backends:
 
 * **direct** (``CoarseSpace``): dense ``E`` assembled and inverted once.
-  Simple, but the dense inverse caps ``nc`` at ~8-18k on this chip (XLA's
-  blocked LU scoped-vmem-OOMs; host LAPACK needs minutes) -- far below the
-  ~2 DOFs/wavelength skeleton resolution (~1e5 unknowns at nx=512) that
-  r04's measurements showed a wave-capturing coarse space needs.
+  Simple, but the dense (nc, nc) inverse grows as nc^2 in memory and nc^3
+  in work -- far below the ~2 DOFs/wavelength skeleton resolution (~1e5
+  unknowns at nx=512) that a wave-capturing coarse space needs.
 * **iterative** (``SparseCoarseSpace``): ``E`` kept **block-sparse over the
   superdomain adjacency graph**.  Plane-wave columns couple only
   cmap-adjacent superdomains, so each (row-super, col-super) pair stores one
@@ -46,7 +45,7 @@ Two coarse-solve backends:
   with a block-Jacobi (per-superdomain 2nm x 2nm) preconditioner.  Storage
   and matvec are O(nS * degree * nm^2) -- skeleton-resolution spaces
   (nc ~ 1e5-3e5) fit with room to spare, and the matvec is a single padded
-  gather + einsum (MXU-shaped).  Assembly uses the exact same per-domain
+  gather + einsum.  Assembly uses the exact same per-domain
   algebra as the dense path (it is exact, not approximate); only the
   storage and the solve change.
 """
@@ -212,22 +211,16 @@ def build_coarse_space(
                 cols = np.broadcast_to(cols, vals.shape).reshape(-1)
                 np.add.at(E, (rows, cols), -vals.reshape(-1))
 
-    # symmetric diagonal normalisation + ridge, then one dense inverse.
-    # Large coarse spaces invert on the accelerator (fp32 LU on the MXU;
-    # host LAPACK on 2 cores needs ~minutes above nc ~ 8k)
+    # symmetric diagonal normalisation + ridge, then one dense inverse:
+    # large coarse spaces invert on the accelerator (fp32 LU), small ones
+    # on the host in fp64
     d = np.sqrt(np.abs(np.diag(E)))
     d = np.where(d > 1e-12 * max(d.max(), 1.0), d, 1.0)
     En = E / d[:, None] / d[None, :]
     En[np.arange(nc), np.arange(nc)] += ridge
-    Einv = None
     if nc > 8192 and jax.default_backend() != "cpu":
-        try:
-            Einv = np.asarray(jnp.linalg.inv(jnp.asarray(En, jnp.float32)))
-        except Exception:
-            # XLA's blocked LU can exceed the scoped-vmem limit at large nc
-            # on some chips; the host path is slow but always works
-            Einv = None
-    if Einv is None:
+        Einv = np.asarray(jnp.linalg.inv(jnp.asarray(En, jnp.float32)))
+    else:
         Einv = np.linalg.inv(En)
 
     return CoarseSpace(
@@ -256,7 +249,7 @@ class SparseCoarseSpace(NamedTuple):
     nbr: jax.Array  # (nS, K) int32 neighbour superdomains (-1 pad)
     # normalised blocks in BATCHED-MATMUL layout: Eb[r, (t, j), (k, s, l)]
     # so the matvec is one (nS, 2nm, K*2nm) @ (nS, K*2nm) contraction --
-    # the robust MXU-shaped lowering (the 6-D einsum form compiled to a
+    # a plain batched matmul (the 6-D einsum form compiled to a
     # slow/fragile kernel at nS ~ 16k)
     Eb: jax.Array  # (nS, 2*nm, K*2*nm)
     Pinv: jax.Array  # (nS, 2nm, 2nm) block-Jacobi inverse
@@ -407,7 +400,7 @@ def _sparse_coarse_matvec(cs: SparseCoarseSpace, h: jax.Array) -> jax.Array:
     hn = h[:, jnp.maximum(cs.nbr, 0)]  # (2, nS, K, nm)
     hn = hn * (cs.nbr >= 0)[None, :, :, None].astype(h.dtype)
     hnf = jnp.transpose(hn, (1, 2, 0, 3)).reshape(nS, K * 2 * nm)
-    y = jnp.einsum("rij,rj->ri", cs.Eb, hnf, precision="high")
+    y = jnp.einsum("rij,rj->ri", cs.Eb, hnf, precision="highest")  # true fp32
     return jnp.transpose(y.reshape(nS, 2, nm), (1, 0, 2))
 
 
@@ -415,7 +408,7 @@ def _sparse_coarse_pc(cs: SparseCoarseSpace, r: jax.Array) -> jax.Array:
     """Block-Jacobi: z_r = Pinv_r r_r per superdomain, both sides stacked."""
     nm = r.shape[2]
     rr = jnp.concatenate([r[0], r[1]], axis=1)  # (nS, 2nm)
-    z = jnp.einsum("rij,rj->ri", cs.Pinv, rr, precision="high")
+    z = jnp.einsum("rij,rj->ri", cs.Pinv, rr, precision="highest")  # true fp32
     return jnp.stack([z[:, :nm], z[:, nm:]])
 
 
@@ -485,15 +478,12 @@ def coarse_apply(
         def pc(x):
             return _sparse_coarse_pc(cs, x.reshape(shape)).reshape(-1)
 
-        # deferred + single-pass CGS: the coarse solve sits near the
-        # device's small-kernel serialization floor (~1 ms/step at nc~3e5;
-        # measured docs/run_coarse_microbench.py), so removing the per-step
-        # Givens/early-exit chain buys ~6% and the loose tol (default 1e-3,
-        # study 3e-2) under the flexible outer FGMRES tolerates the CGS1
-        # orthogonalisation.  ``unroll`` is measurably WORSE here (the 20
-        # distinctly-shaped growing-slice matmuls beat the one masked
-        # (m+1, nc) shape only for small n; at nc~3e5: 71 ms vs 49 ms per
-        # apply, 19 s extra compile) -- keep the rolled loop.
+        # deferred + single-pass CGS: the coarse solve is a chain of small
+        # kernels, so dropping the per-step Givens/early-exit chain removes
+        # work from every step, and the loose tol (default 1e-3, study
+        # 3e-2) under the flexible outer FGMRES tolerates the CGS1
+        # orthogonalisation.  The rolled loop (unroll=False) compiles one
+        # masked (m+1, nc) shape instead of 20 growing-slice shapes.
         igo = {"deferred": True, "unroll": False, "reorth": False}
         if solve_opts is not None:
             igo = solve_opts

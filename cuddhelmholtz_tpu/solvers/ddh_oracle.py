@@ -19,7 +19,8 @@ leading axis purely for speed; they are independent in the reference kernel
 (one CUDA block each), so this changes no semantics.
 
 Used by ``tests/test_ddh_oracle.py`` to pin the production apply and the
-lambda-GMRES convergence behaviour against the reference algorithm.
+lambda-GMRES convergence behaviour against the reference algorithm, and by
+``chip_smoke.py`` as the plain reference of the wave cycle on the device.
 """
 
 from __future__ import annotations
@@ -96,6 +97,10 @@ class DDHOracle:
                 ll += 1
             for i in range(ndof):
                 inv_perm[p, perm[p, i]] = i
+
+        # oracle slot ll of domain p holds the EnsembleSpace local DOF
+        # perm[p, ll] (the production DDH's slot index); -1 past ndof
+        self.perm = perm
 
         # permuted index tables (DDH.cpp:483-510)
         gI = np.full((ndom, mx_dof), 0, dtype=np.int64)
@@ -177,30 +182,78 @@ class DDHOracle:
 
     # ------------------------------------------------------------------ kernel
 
-    def _stiffness(self, u):
+    def _stiffness(self, u, doms):
         """z += S u per subdomain: the inline collocated sum-factorised apply
-        (``stiffness``, DDH.cpp:60-109), batched over domains and elements."""
+        (``stiffness``, DDH.cpp:60-109), batched over the domains ``doms``
+        (rows of ``u``) and their elements."""
         D = self.D
-        sI = self.sI  # (ndom, nel, l, k)
-        dom = np.arange(self.n_domains, dtype=np.int64)[:, None, None, None]
+        sI = self.sI[doms]  # (nd, nel, l, k)
+        nd = len(doms)
+        dom = np.arange(nd, dtype=np.int64)[:, None, None, None]
         U = u[dom, sI]  # U[p, el, l, i] = u[p, sI[p, el, l, i]]
         Ux = np.einsum("ki,peli->pelk", D, U)  # d/dxi at (l, k)
         Uy = np.einsum("li,peik->pelk", D, U)  # d/deta at (l, k)
-        fx = self.Gx * Ux + self.Gy * Uy
-        fy = self.Gy * Ux + self.Gz * Uy
+        fx = self.Gx[doms] * Ux + self.Gy[doms] * Uy
+        fy = self.Gy[doms] * Ux + self.Gz[doms] * Uy
         Su = np.einsum("ik,peli->pelk", D, fx) + np.einsum("il,peik->pelk", D, fy)
         z = np.zeros_like(u)
-        flat = (dom[:, :, 0, 0] * u.shape[1] + sI.reshape(self.n_domains, -1))
+        flat = (dom[:, :, 0, 0] * u.shape[1] + sI.reshape(nd, -1))
         np.add.at(z.reshape(-1), flat.reshape(-1), Su.reshape(-1))
         return z
+
+    def _inv_mi(self, doms):
+        with np.errstate(divide="ignore"):
+            a, m = self.a[doms], self.m[doms]
+            return np.where(
+                self.valid[doms], F32(1.0) / (a * a * m), F32(0)
+            ).astype(F32)
+
+    def _face_mass(self, doms):
+        in_f = np.arange(self.mx_dof)[None, :] < self.fsizes[doms][:, None]
+        return np.where(in_f, self.H[doms], F32(0)).astype(F32)
+
+    def cycle(self, F, G, doms=None, wh_maxit=WH_MAXIT):
+        """The ``wh_maxit`` x nt leapfrog WaveHoltz cycle (DDH.cpp:237-293)
+        of the domains ``doms`` (default: all) from the forcing ``F, G``
+        ((len(doms), mx_dof), oracle slot layout).  Returns the filtered
+        ``(u, v)``, ``v`` not yet divided by omega."""
+        doms = np.arange(self.n_domains) if doms is None else np.asarray(doms)
+        dt = F32(self.dt)
+        half_dt = F32(0.5) * dt
+        inv_mi = self._inv_mi(doms)
+        Hia = (self._face_mass(doms) * self.a[doms]).astype(F32)  # DDH.cpp:233
+        F = np.asarray(F, dtype=F32)
+        G = np.asarray(G, dtype=F32)
+        u = np.zeros((len(doms), self.mx_dof), dtype=F32)
+        v = np.zeros_like(u)
+        cs, sn, filt = self.cs, self.sn, self.wh_filter
+        for _ in range(wh_maxit):
+            dK = filt[0]
+            p = u.copy()
+            q = v.copy()
+            u = u * dK
+            v = v * dK
+            for it in range(1, self.nt + 1):
+                z = self._stiffness(p, doms)
+                z -= Hia * q
+                dq = (z + cs[2 * it - 2] * F + sn[2 * it - 2] * G) * inv_mi
+                p_half = p - half_dt * q
+                q_half = q + half_dt * dq
+                p = p - dt * q_half
+                z = self._stiffness(p_half, doms)
+                z -= Hia * q_half
+                dq = (z + cs[2 * it - 1] * F + sn[2 * it - 1] * G) * inv_mi
+                q = q + dt * dq
+                dK = filt[it]
+                u = u + dK * p
+                v = v + dK * q
+        return u, v
 
     def _kernel(self, x, lam, want_y, want_update, wh_maxit=WH_MAXIT):
         """The ddh_action kernel (DDH.cpp:111-321) on all subdomains."""
         ndom, mx = self.n_domains, self.mx_dof
         g_ndof = self.g_ndof
         n_lambda = self.n_lambda
-        dt = F32(self.dt)
-        half_dt = F32(0.5) * dt
         rw = F32(1.0) / F32(self.omega)
 
         tid = np.arange(mx)
@@ -209,10 +262,7 @@ class DDHOracle:
 
         a = self.a
         m = self.m
-        with np.errstate(divide="ignore"):
-            inv_mi = np.where(in_dof, F32(1.0) / (a * a * m), F32(0)).astype(F32)
-
-        Hi = np.where(in_f, self.H, F32(0)).astype(F32)
+        Hi = self._face_mass(np.arange(ndom))
 
         F = np.zeros((ndom, mx), dtype=F32)
         G = np.zeros((ndom, mx), dtype=F32)
@@ -236,32 +286,7 @@ class DDHOracle:
             F = F + Hi * lam_t
             G = G + Hi * mu_t
 
-        Hia = (Hi * a).astype(F32)  # Hi *= ai (DDH.cpp:233)
-
-        u = np.zeros((ndom, mx), dtype=F32)
-        v = np.zeros((ndom, mx), dtype=F32)
-        cs, sn, filt = self.cs, self.sn, self.wh_filter
-        for _ in range(wh_maxit):
-            dK = filt[0]
-            p = u.copy()
-            q = v.copy()
-            u = u * dK
-            v = v * dK
-            for it in range(1, self.nt + 1):
-                z = self._stiffness(p)
-                z -= Hia * q
-                dq = (z + cs[2 * it - 2] * F + sn[2 * it - 2] * G) * inv_mi
-                p_half = p - half_dt * q
-                q_half = q + half_dt * dq
-                p = p - dt * q_half
-                z = self._stiffness(p_half)
-                z -= Hia * q_half
-                dq = (z + cs[2 * it - 1] * F + sn[2 * it - 1] * G) * inv_mi
-                q = q + dt * dq
-                dK = filt[it]
-                u = u + dK * p
-                v = v + dK * q
-
+        u, v = self.cycle(F, G, wh_maxit=wh_maxit)
         v = v * rw
 
         y = None
@@ -307,6 +332,61 @@ class DDHOracle:
         """Recover [u; v] (DDH.cpp:669-695)."""
         y, _ = self._kernel(f, lam, want_y=True, want_update=False)
         return y
+
+
+def compare_wave_cycle(ddh, oracle, doms, wh_maxit=WH_MAXIT, precision=None,
+                       pad_rows=0, seed=0):
+    """Run the production ``_wave_cycle_xla`` of ``ddh`` on its subdomains
+    ``doms`` (followed by ``pad_rows`` all-zero padding rows, as a sharded
+    batch carries) and this oracle's cycle on the same random forcing.
+
+    Returns ``(err_u, err_v, pad_max)``: the max-abs errors of u and v
+    relative to the oracle's max-abs values, and the largest magnitude the
+    production cycle left in its padding rows (must be 0)."""
+    import jax
+    import jax.numpy as jnp
+
+    from .ddh import PRECISION, _wave_cycle_xla
+
+    precision = PRECISION if precision is None else precision
+    doms = np.asarray(doms)
+    nd = len(doms)
+    rng = np.random.default_rng(seed)
+    valid = oracle.valid[doms]
+    Fo = np.where(valid, rng.standard_normal(valid.shape), 0.0).astype(F32)
+    Go = np.where(valid, rng.standard_normal(valid.shape), 0.0).astype(F32)
+    # oracle slot ll of row r is production slot perm[doms[r], ll]
+    rows = np.broadcast_to(np.arange(nd)[:, None], valid.shape)[valid]
+    cols = oracle.perm[doms][valid]
+    Fp = np.zeros((nd + pad_rows, ddh.pad), F32)
+    Gp = np.zeros_like(Fp)
+    Fp[rows, cols] = Fo[valid]
+    Gp[rows, cols] = Go[valid]
+
+    p = ddh.params
+    di = jnp.asarray(doms)
+
+    def sub(a):
+        a = a[di]
+        return jnp.concatenate([a, jnp.zeros((pad_rows,) + a.shape[1:], a.dtype)])
+
+    p2 = p._replace(
+        S=p.S if p.S.ndim == 2 else sub(p.S), Ha=sub(p.Ha), inv_mi=sub(p.inv_mi)
+    )
+    cyc = jax.jit(_wave_cycle_xla, static_argnums=(3, 4))
+    u, v = jax.block_until_ready(
+        cyc(p2, jnp.asarray(Fp), jnp.asarray(Gp), int(wh_maxit), precision)
+    )
+    u, v = np.asarray(u), np.asarray(v)
+    uo, vo = oracle.cycle(Fo, Go, doms, wh_maxit)
+
+    def err(x, xo):
+        got = np.zeros_like(xo)
+        got[valid] = x[rows, cols]
+        return float(np.abs(got - xo).max() / max(np.abs(xo).max(), 1e-30))
+
+    pad_max = float(np.abs(np.concatenate([u[nd:], v[nd:]])).max()) if pad_rows else 0.0
+    return err(u, uo), err(v, vo), pad_max
 
 
 def gmres_numpy(matvec, b, m=20, maxit=100, tol=1e-4):

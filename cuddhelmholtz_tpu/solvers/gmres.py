@@ -5,14 +5,14 @@ restarted GMRES with Givens-rotation least squares, early inner exit on the
 rotated-residual estimate, true-residual recomputation each restart, optional
 left preconditioning (solve P A x = P b), fp32 and fp64, residual history.
 
-TPU redesign: the reference splits work between device BLAS-1 kernels and
-host LAPACK with a blocking sync per dot product (``gmres.cpp:167-189``).
-Here the entire restart cycle is a single jitted ``lax.while_loop``:
+Design: the reference splits work between device BLAS-1 kernels and host
+LAPACK with a blocking sync per dot product (``gmres.cpp:167-189``).  Here
+the entire restart cycle is a single jitted ``lax.while_loop``:
 
   * orthogonalisation is re-orthogonalised classical Gram-Schmidt (CGS2) by
-    default -- two (m+1, n) x (n,) matmuls per Arnoldi step that run on the
-    MXU and reduce with ``psum`` when the vectors are sharded -- instead of
-    the reference's k sequential dot+axpy pairs (MGS);
+    default -- two (m+1, n) x (n,) matrix-vector products per Arnoldi step
+    that reduce with ``psum`` when the vectors are sharded -- instead of the
+    reference's k sequential dot+axpy pairs (MGS);
   * the Givens rotations are accumulated in a small (m+1, m+1) matrix so the
     Hessenberg update is one tiny matmul;
   * the triangular solve runs in-jit via ``jax.scipy`` on a fixed-size
@@ -30,14 +30,11 @@ from jax import lax
 
 from ..utils import linalg
 
-# Precision for the (m+1, n) orthogonalisation/update matvecs.  The package
-# default is "highest" (6-pass bf16 emulation), which these matrix-vector
-# contractions do not need: XLA's matvec path accumulates in fp32 at every
-# precision (measured max rel err 2.3e-7 vs float64 for highest/high/default
-# alike at m=200, n=296k), while "highest" costs 5.6x the wall time
-# (17.1 -> 3.1 ms per CGS pair on TPU v5e).  "high" (3-pass, error
-# compensated) is kept as a safety margin at zero measured cost over default.
-_MV_PRECISION = "high"
+# Precision of the (m+1, n) orthogonalisation/update products: true fp32.
+# Under ``vmap`` and in the block solver these become matrix-matrix
+# products, which a lower word would let run on TF32 tensor cores and lose
+# orthogonality (docs/DTYPES.md).
+_MV_PRECISION = "highest"
 
 
 def _mv(A, x):
@@ -99,7 +96,7 @@ def _arnoldi_step(matvec, V, Q, R, eta, k, tol_bnrm, done, nmv, reorth=True, vin
 
     # The branches CLOSE OVER V and only return the new basis row: putting V
     # through lax.cond's carry would materialise an (m+1, n) select each step
-    # (measured ~matvec-sized HBM cost) and block in-place row updates.
+    # (a matvec-sized memory pass) and block in-place row updates.
     def active_step(_):
         w = matvec(V[k] if vin is None else vin)
         # CGS(2): rows of V beyond the current k are zero, so the (sliced or
@@ -184,10 +181,10 @@ def gmres(
     time grows with m.
 
     ``deferred=True`` removes the per-step Givens/early-exit machinery (a
-    serialized small-kernel chain per step on this chip) in favour of one
+    serialized chain of small kernels per step) in favour of one
     ridge-regularised normal-equations least squares per restart; exits
     move to restart boundaries (up to m-1 overshoot steps in the final
-    restart).  See ``fgmres`` for the profile that motivated it.
+    restart).
     """
     dtype = b.dtype
     n = b.shape[0]
@@ -427,8 +424,7 @@ def fgmres(
     left preconditioning, ``gmres.cpp:68-89``).
 
     ``deferred=True`` trades the per-step Givens/early-exit machinery (a
-    ~3.4 ms ``lax.cond`` of serialized small kernels per step on this
-    chip's tiny-op pipeline — profiled in the composite refine solve) for
+    ``lax.cond`` of serialized small kernels per step) for
     one ridge-regularised normal-equations solve per RESTART: every
     restart runs all m steps unconditionally and convergence is checked on
     the true residual at restart boundaries.  Same trajectories when exit
@@ -483,7 +479,7 @@ def fgmres(
 
             V, Hc, Zs, nmv = lax.fori_loop(0, m, inner_d, (V, Hc, Zs, nmv))
             # min_y || r_nrm e1 - Hc y || by ridge-regularised normal
-            # equations: one MXU matmul + one tiny Cholesky per restart
+            # equations: one matmul + one tiny Cholesky per restart
             # instead of m serialized Givens chains
             N = _mv(Hc.T, Hc)
             ridge = jnp.asarray(1e-7, dtype) * (
@@ -567,9 +563,9 @@ def _block_qr(Z, eps):
     ok = jnp.all(jnp.isfinite(Lc))
 
     def fast(_):
-        # invert the tiny factor explicitly and apply by matmul: on this
-        # chip a (K, K) triangular solve with n rhs columns serializes in
-        # the tiny-op pipeline, while (K, K) @ (K, n) rides the MXU
+        # invert the tiny factor explicitly and apply by matmul: one
+        # (K, K) @ (K, n) product instead of a triangular solve with n
+        # right-hand-side columns
         Li = jax.scipy.linalg.solve_triangular(
             Lc, jnp.eye(K, dtype=Z.dtype), lower=True
         )
@@ -578,8 +574,8 @@ def _block_qr(Z, eps):
 
     def robust(_):
         # eigh-whitened polar factorisation (rank-revealing, NaN-free) —
-        # ~20x the cost of CholQR on this chip's tiny-op pipeline, so it
-        # runs only when the fast path broke down
+        # far costlier than CholQR, so it runs only when the fast path
+        # broke down
         s, U = jnp.linalg.eigh(G)
         floor = eps * jnp.maximum(s[-1], jnp.asarray(1e-30, Z.dtype))
         s_c = jnp.sqrt(jnp.maximum(s, floor))
@@ -612,13 +608,13 @@ def block_gmres(
     still costs exactly one batched matvec, the same device work as one
     lock-step ``vmap`` step.  This is what replaces the reference's
     one-forcing-per-invocation driver loop (DDH.cpp:85-161) at multi-source
-    scale; a lock-step ``jax.vmap`` of :func:`gmres` (the r04 path) runs
+    scale; a lock-step ``jax.vmap`` of :func:`gmres` runs
     every lane to the SLOWEST lane's restart count with no cross-source
     subspace sharing.
 
-    TPU mapping: block orthogonalisation is CGS2 on K vectors at once —
-    (p, n) @ (n, K) matmuls that fill the MXU K× better than single-vector
-    GMRES; the block QR is CholQR (two small (K, K) host-free ops); the
+    Design: block orthogonalisation is CGS2 on K vectors at once —
+    (p, n) @ (n, K) matmuls with K times the arithmetic intensity of
+    single-vector GMRES; the block QR is CholQR (two small (K, K) host-free ops); the
     per-restart least squares is one (m+1)K × mK QR on-device.  Fully
     jitted: restarts are a ``lax.while_loop`` over fixed-shape state.
 
@@ -652,7 +648,7 @@ def block_gmres(
         def inner(j, args):
             """One block-Arnoldi step.  With a static ``j`` (``unroll=True``)
             the CGS matmuls read only the populated ``W[:(j+1)K]`` rows —
-            on average half the basis HBM traffic, which DOMINATES the
+            on average half the basis memory traffic, which dominates the
             per-step cost of the batched DDH solve (the matvec amortises
             over K; the orthogonalisation does not)."""
             W, Hb, nmv = args
@@ -692,10 +688,9 @@ def block_gmres(
         else:
             W, Hb, nmv = lax.fori_loop(0, m, inner, (W, Hb, nmv))
         # least squares  min_Y || E - Hb Y ||_F  via ridge-regularised
-        # normal equations: N = HbᵀHb is one MXU matmul + ONE (mK, mK)
+        # normal equations: N = HbᵀHb is one matmul + ONE (mK, mK)
         # Cholesky, where a Householder QR of the (m+1)K x mK Hessenberg
-        # would serialize ~mK panel steps through this chip's tiny-op
-        # pipeline (measured ms-scale, x maxit restarts).  The block
+        # would serialize ~mK small panel steps per restart.  The block
         # Hessenberg of a preconditioned system is mildly conditioned, and
         # the relative ridge bounds the squared condition number's fp32
         # noise; frozen/dependent columns are zero, which the ridge turns

@@ -10,7 +10,7 @@ per-element labels and build, per subdomain (padded to max sizes with -1):
   * the global connectivity map ``cmap`` pairing shared interface face-DOFs
     between subdomains (each shared DOF appears exactly once).
 
-On TPU these padded tables drive the batched-over-subdomains DDH kernel; the
+These padded tables drive the batched-over-subdomains DDH kernel; the
 ``cmap`` is the static neighbour graph for the interface (lambda) exchange.
 
 The whole build is vectorised (no per-edge or per-domain Python loops): every
@@ -259,7 +259,7 @@ def coordinate_bisection_labels(
     balanced candidate cuts (quantiles 0.35..0.65) along BOTH axes and picks
     the one crossing the fewest interior mesh edges -- cut edges are what
     become interface trace unknowns (lambda), so this directly shrinks the
-    substructured system (see docs/PERF.md partition-quality study).
+    substructured system (``examples/partition_study.py`` compares both).
 
     Returns ``(labels, n_parts)``.  ``n_parts`` may be BELOW ``n_target``
     when the mesh runs out of splittable parts (every part has one element);

@@ -2,7 +2,7 @@
 
 The reference's debug build enables index bounds checks in every tensor
 access and in-kernel asserts (``/root/reference/include/Tensor.hpp:34-37``,
-``source/DDH.cpp:162-164``).  The TPU build's device ops mask out-of-range
+``source/DDH.cpp:162-164``).  This package's device ops mask out-of-range
 indices (``mode="drop"/"fill"``), which is correct for the -1 padding
 convention but silently produces wrong numbers if an index TABLE is
 corrupted.  Setting ``CUDDH_DEBUG=1`` turns on:

@@ -1,7 +1,7 @@
 """BLAS-1 style vector operations (reference L1 parity).
 
 Parity with ``/root/reference/include/linalg.hpp`` (axpby, dot, norm, dist,
-copy, scal, fill, zeros, ones).  On TPU these are trivial fused XLA
+copy, scal, fill, zeros, ones).  Here these are trivial fused XLA
 expressions rather than hand-written reduction kernels (the reference uses a
 tree-reduce + atomicAdd CUDA kernel for ``dot``, ``linalg.cpp:6-47``); they
 exist as named functions so solver code reads like the reference and so the

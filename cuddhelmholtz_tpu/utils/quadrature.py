@@ -7,7 +7,7 @@ Gauss-Lobatto rules of any order, built with the Golub-Welsch algorithm
 (symmetric-tridiagonal eigenvalues) followed by a few Newton refinement steps
 on the appropriate Jacobi polynomial, with closed-form weights.
 
-The TPU design keeps all of this on the host in NumPy: quadrature data are
+This package keeps all of this on the host in NumPy: quadrature data are
 tiny static arrays that get baked into jitted operator closures.
 """
 

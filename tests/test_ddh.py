@@ -451,3 +451,114 @@ def test_group_apply_majority_split_matches_fallback():
     inv2 = np.arange(ndom) % nu
     g2, m2, s2 = _iomaps_split(inv2)
     assert g2 is None and m2 is None and s2 is None
+
+
+def _jittered_ddh(nx=8, nt=60):
+    """Structured partition of a jittered mesh: every subdomain assembles a
+    DIFFERENT stiffness matrix (the per-domain S path)."""
+    mesh0 = Mesh2D.uniform_rect(nx, -1, 1, nx, -1, 1)
+    rng = np.random.default_rng(3)
+    verts = mesh0.vertices.copy()
+    interior = (np.abs(np.abs(verts[:, 0]) - 1.0) > 1e-12) & (
+        np.abs(np.abs(verts[:, 1]) - 1.0) > 1e-12
+    )
+    verts[interior] += 0.15 * (2.0 / nx) * rng.uniform(-1, 1, (interior.sum(), 2))
+    mesh = Mesh2D.from_vertices(verts, mesh0.elem_vertices)
+    fem = H1Space(mesh, Basis(4))
+    return DDH(
+        2 * np.pi * nx / 2.5, np.ones(fem.ndof), fem, nx=nx, ny=nx,
+        block_size=8, nt_override=nt,
+    )
+
+
+def test_dedup_uniform_medium_groups_match_host_data():
+    """Shared S: the groups are exactly the distinct rows of the host cycle
+    data, and ``transfer_nu`` is their count."""
+    nx = 8
+    mesh = Mesh2D.uniform_rect(nx, -1, 1, nx, -1, 1)
+    fem = H1Space(mesh, Basis(4))
+    ddh = DDH(2 * np.pi * nx / 2.5, np.ones(fem.ndof), fem, nx=nx, ny=nx,
+              block_size=8, nt_override=20)
+    assert ddh.shared_S
+    f32 = lambda a: np.asarray(a, np.float32).astype(np.float64)
+    key = np.concatenate(
+        [f32(ddh._Ha_np), f32(ddh._mi_np), f32(ddh._a2wf_np), ddh._Hf_np,
+         ddh._fslot_np.astype(np.float64)], axis=1,
+    )
+    n_unique = np.unique(key, axis=0).shape[0]
+    uidx, inv, nu = ddh._domain_groups()
+    assert 1 < nu == n_unique < ddh.n_domains
+    for g in range(nu):
+        members = np.nonzero(inv == g)[0]
+        assert np.all(key[members] == key[members[0]])
+    ddh.precompute_transfer()
+    assert ddh.transfer_stats["transfer_nu"] == n_unique
+
+
+def test_dedup_identical_subdomains_form_one_group():
+    """Per-domain S: domains whose host cycle data (stiffness bytes
+    included) are identical collapse into ONE group, and the transfer probes
+    run for that one domain only; distinct stiffness matrices stay apart."""
+    from cuddhelmholtz_tpu.solvers.ddh import _row_ids
+
+    ddh = _jittered_ddh(nt=20)
+    assert not ddh.shared_S and ddh.params.S.ndim == 3
+    assert ddh._domain_groups()[2] == ddh.n_domains  # all distinct
+    S = np.asarray(ddh.params.S)
+    np.testing.assert_array_equal(_row_ids(S[[0, 1, 0, 2, 1]]), [0, 1, 0, 2, 1])
+
+    # make every domain a copy of domain 0 on the host side
+    ddh._domain_groups_cache = None
+    ddh._S_ids = np.zeros(ddh.n_domains, np.int64)
+    for name in ("_Ha_np", "_mi_np", "_a2wf_np", "_Hf_np", "_fslot_np"):
+        a = getattr(ddh, name)
+        setattr(ddh, name, np.broadcast_to(a[:1], a.shape).copy())
+    uidx, inv, nu = ddh._domain_groups()
+    assert nu == 1 and np.all(inv == 0) and list(uidx) == [0]
+    T = ddh.precompute_transfer()
+    assert ddh.transfer_stats["transfer_nu"] == 1 and T.shape[0] == 1
+
+
+def test_probe_compile_payload_no_large_constants(monkeypatch):
+    """Probe-chunk jits must take the per-domain arrays as ARGUMENTS: a
+    closed-over S stack is serialized into the program as a dense literal,
+    which at scale makes programs of hundreds of MB.  Spy on jax.jit and
+    assert every traced probe program lowers to far less text than the S
+    stack itself would occupy as an embedded literal."""
+    import jax
+
+    from cuddhelmholtz_tpu.mesh.io import load_unstructured_square
+    from cuddhelmholtz_tpu.solvers import ddh as ddh_mod
+    from cuddhelmholtz_tpu.spaces.ensemble import coordinate_bisection_labels
+
+    mesh = load_unstructured_square()
+    labels, nd = coordinate_bisection_labels(mesh, 8)
+    fem = H1Space(mesh, Basis(4))
+    d = ddh_mod.DDH(
+        2 * np.pi * 0.8, np.ones(fem.ndof), fem,
+        element_labels=labels, n_domains=nd, nt_override=20,
+    )
+    assert d.params.S.ndim == 3  # per-domain stiffness: the dangerous case
+    s_bytes = int(np.prod(d.params.S.shape)) * 4
+
+    real_jit = jax.jit
+    sizes = []
+
+    def spy_jit(f=None, **kw):
+        if f is None:
+            return lambda g: spy_jit(g, **kw)
+        jf = real_jit(f, **kw)
+
+        def wrapped(*a, **k):
+            sizes.append(len(jf.lower(*a, **k).as_text()))
+            return jf(*a, **k)
+
+        return wrapped
+
+    monkeypatch.setattr(jax, "jit", spy_jit)
+    d.precompute_transfer()
+    d.precompute_io_maps()
+    assert sizes, "no probe jit was traced"
+    # an embedded S literal alone costs >= 2 text chars/byte; argument-passed
+    # state keeps the whole program orders of magnitude below that
+    assert max(sizes) < min(s_bytes, 1 << 20), (max(sizes), s_bytes)

@@ -1,8 +1,8 @@
 """Pin the production DDH against a NumPy transliteration of the reference.
 
-``tests/ddh_oracle.py`` rewrites ``/root/reference/source/DDH.cpp:111-321,
+``cuddhelmholtz_tpu/solvers/ddh_oracle.py`` rewrites ``/root/reference/source/DDH.cpp:111-321,
 323-609`` directly (reference numbering, face-first permutation, fp32,
-full-F forcing).  These tests assert that the production TPU-redesigned path
+full-F forcing).  These tests assert that the production path
 (own-slot lambda layout, dense assembled subdomain stiffness, batched scan
 cycle) computes the SAME operator: per-apply outputs to fp32 tolerance and
 matching lambda-GMRES residual histories.  This proves the remaining ~10%
@@ -21,7 +21,7 @@ from cuddhelmholtz_tpu.solvers.ddh import DDH
 from cuddhelmholtz_tpu.spaces.h1 import H1Space
 from cuddhelmholtz_tpu.utils.basis import Basis
 
-from ddh_oracle import DDHOracle, gmres_numpy
+from cuddhelmholtz_tpu.solvers.ddh_oracle import DDHOracle, gmres_numpy
 
 def _make_pair(nx=8, deg=3, labels=None, seed=0):
     # 4x the reference's nx/10 frequency scaling: T = 2 pi / omega shrinks so
@@ -172,3 +172,47 @@ def test_oracle_action_matches_deg7():
     want = oracle.action(l_ref)
     got = from_prod(ddh.action(jnp.asarray(to_prod(l_ref))))
     assert _rel(got, want) < 2e-4, _rel(got, want)
+
+
+@pytest.fixture(scope="module")
+def cycle_pairs():
+    """(ddh, oracle) with a shared stiffness (uniform grid, rough medium) and
+    with per-domain stiffness matrices (jittered grid)."""
+    nx, deg = 8, 3
+    omega = 2 * np.pi * nx / 2.5
+    rng = np.random.default_rng(6)
+    mesh0 = Mesh2D.uniform_rect(nx, -1, 1, nx, -1, 1)
+    verts = mesh0.vertices.copy()
+    interior = (np.abs(np.abs(verts[:, 0]) - 1.0) > 1e-12) & (
+        np.abs(np.abs(verts[:, 1]) - 1.0) > 1e-12
+    )
+    verts[interior] += 0.15 * (2.0 / nx) * rng.uniform(-1, 1, (interior.sum(), 2))
+    pairs = {}
+    for kind, mesh in (("shared", mesh0),
+                       ("per_domain", Mesh2D.from_vertices(verts, mesh0.elem_vertices))):
+        fem = H1Space(mesh, Basis(deg + 1))
+        a_nodal = 1.0 + 0.3 * rng.random(fem.ndof)
+        ddh = DDH(omega, a_nodal, fem, nx=nx, ny=nx, block_size=8)
+        assert ddh.shared_S == (kind == "shared")
+        pairs[kind] = (ddh, DDHOracle(omega, a_nodal, fem, ddh.efem))
+    return pairs
+
+
+@pytest.mark.parametrize("kind", ["shared", "per_domain"])
+@pytest.mark.parametrize("pad_rows", [0, 3])
+@pytest.mark.parametrize("wh_maxit", [1, 5])
+def test_wave_cycle_matches_oracle(cycle_pairs, kind, pad_rows, wh_maxit):
+    """The production ``_wave_cycle_xla`` (dense assembled stiffness, at the
+    pinned ``PRECISION``) against the reference's inline sum-factorised
+    cycle, on a subset of real subdomains; zero padding rows stay zero."""
+    from cuddhelmholtz_tpu.solvers.ddh import PRECISION
+    from cuddhelmholtz_tpu.solvers.ddh_oracle import compare_wave_cycle
+
+    assert PRECISION == "highest"
+    ddh, oracle = cycle_pairs[kind]
+    doms = [0, 5, 10, 15]
+    err_u, err_v, pad_max = compare_wave_cycle(
+        ddh, oracle, doms, wh_maxit=wh_maxit, pad_rows=pad_rows, seed=wh_maxit
+    )
+    assert err_u < 2e-4 and err_v < 2e-4, (err_u, err_v)
+    assert pad_max == 0.0

@@ -115,7 +115,7 @@ def test_helmholtz_ddh_stagnation_contract():
     """Forcing an unreachable tolerance (below the fp32 inner-solve floor)
     trips the refinement stagnation guard: the record must say so explicitly
     (success=False, stagnated=True) with a well-formed history, instead of
-    failing silently inside bench extras (VERDICT r04 #8)."""
+    failing silently."""
     from cuddhelmholtz_tpu.examples.drivers import run_helmholtz_ddh
 
     res = run_helmholtz_ddh(nx=8, deg=3, m=10, maxit=30, tol=1e-16,
@@ -192,7 +192,7 @@ def test_helmholtz_ddh_unstructured_cross_validation():
 
 
 def test_ddh_multi_source_batched(tmp_path):
-    """Batched multi-RHS substructured solve (TPU-native capability with no
+    """Batched multi-RHS substructured solve (a capability with no
     reference analog): every source converges, lane trajectories match solo
     solves of the same forcing."""
     import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Multi-chip sharding tests on the simulated 8-device CPU mesh.
 
 The reference has no distributed code at all; these tests validate the
-TPU-native scaling layer: element-sharded operator apply and
+sharded layer: element-sharded operator apply and
 subdomain-sharded DDH must reproduce the single-device results exactly
 (deterministic segment-sum assembly + psum).
 """

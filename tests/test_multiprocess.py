@@ -1,9 +1,8 @@
 """Multi-host entry: jax.distributed wiring + ShardedDDH across processes.
 
-SURVEY.md section 7 step 7 / VERDICT round-1 item 5: the reference has no
-distributed path at all; the TPU framework must initialise
-``jax.distributed`` and run its sharded solvers over a DCN-aware 2-axis
-mesh.  Real multi-host hardware is unavailable here, so this spawns local
+SURVEY.md section 7 step 7: the reference has no distributed path at all;
+the framework must initialise ``jax.distributed`` and run its sharded
+solvers over a 2-axis (process, local device) mesh.  This spawns local
 CPU processes wired with Gloo — the standard JAX pattern for testing
 cross-process collectives — and checks ShardedDDH agrees with the
 single-process reference bit-for-near (fp32 reduction order).
